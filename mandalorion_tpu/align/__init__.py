@@ -4,7 +4,7 @@ Seed → chain → extend architecture (minimap2 paper, PAPERS.md), re-designed
 array-first: vectorized rolling-hash minimizers over a sorted genome index,
 diagonal-run collapse + segment chaining, splice-point search as a cumulative
 -match scan, and batched banded affine-gap DP for inter-anchor gap fill (the
-Pallas TPU kernel in align/kernels.py). Emits extended PSL directly
+device DP in align/kernels.py). Emits extended PSL directly
 (accuracy + long cs + oriented sequence), the reference pipeline's
 interchange format (`emtrey.py:146-148`).
 """

@@ -56,11 +56,24 @@ class SpliceAligner:
             self.index, getattr(self.cfg, "occ_frac", 0.0),
             self.cfg.max_occ)
         backend = getattr(self.cfg, "dp_backend", "numpy")
-        if backend in ("rowscan", "pallas") or \
+        if backend not in ("numpy", "rowscan"):
+            raise ValueError(f"unknown dp_backend {backend!r} "
+                             "(expected 'numpy' or 'rowscan')")
+        if backend == "rowscan" or \
                 getattr(self.cfg, "chain_backend", "native") == "device":
-            # device compute selected: persist kernel compiles across runs
+            # device compute selected: persist kernel compiles across
+            # runs, and bring the backend up HERE so that runtime.fork_ok
+            # turns false — module A then keeps every device dispatch in
+            # this process instead of forking workers that would each
+            # open (and reserve most of) the accelerator
             from mandalorion_tpu.runtime import enable_compilation_cache
             enable_compilation_cache()
+            import jax
+            jax.devices()
+        # DP problems of the staged device path that fell outside the
+        # device envelope (MAX_Q_DEVICE / MAX_T_DEVICE) and were solved by
+        # the host solver instead
+        self.dp_on_host = 0
         # hash-axis-sharded genome index (SURVEY §2.3: the alternative to
         # per-host replication for indexes beyond one host's memory):
         # seed lookups route through parallel.dist.sharded_index_lookup,
@@ -78,9 +91,6 @@ class SpliceAligner:
         if backend == "rowscan":
             from mandalorion_tpu.align.kernels import solve_dp_rowscan
             self.dp_backend = solve_dp_rowscan
-        elif backend == "pallas":
-            from mandalorion_tpu.align.kernels import solve_dp_pallas
-            self.dp_backend = solve_dp_pallas
         else:
             # 'numpy' resolves to the bit-identical native C++ solver when
             # available (solve_dp_native falls back to solve_dp_numpy)
@@ -106,6 +116,7 @@ class SpliceAligner:
         twin.index = self.index
         twin.max_occ = self.max_occ
         twin._sharded = None
+        twin.dp_on_host = 0
         from mandalorion_tpu.align.extend import solve_dp_native
         twin.dp_backend = solve_dp_native
         return twin
@@ -517,6 +528,10 @@ class SpliceAligner:
             if pend is not None:
                 pendings.append(pend)
         modes = [p.mode for p in problems]
+        if getattr(self.cfg, "dp_backend", "numpy") == "rowscan":
+            from mandalorion_tpu.align.kernels import fits_device
+            self.dp_on_host += sum(
+                not fits_device(len(p.q), len(p.t)) for p in problems)
         results = self.dp_backend(problems, self.cfg)
         out: List[PslRecord] = []
         for pend in pendings:
@@ -551,8 +566,7 @@ class SpliceAligner:
                 self.index.bucket_lo is None or pipeline_mesh() is not None:
             return None
         cfg = self.cfg
-        dp_backend = getattr(cfg, "dp_backend", "numpy")
-        if dp_backend not in ("pallas", "rowscan"):
+        if getattr(cfg, "dp_backend", "numpy") != "rowscan":
             return None
         code_list = [encode(seq) for _name, seq in reads]
         read_off = np.zeros(len(reads) + 1, np.int64)
@@ -586,9 +600,8 @@ class SpliceAligner:
 
         from mandalorion_tpu.align.kernels import solve_dp_fused
         meta, ks, buf, on_host = solve_dp_fused(
-            probs, oriented, read_off, self.index.seq_codes, cfg,
-            interpret=getattr(cfg, "pallas_interpret", False),
-            rowscan=dp_backend == "rowscan")
+            probs, oriented, read_off, self.index.seq_codes, cfg)
+        self.dp_on_host += int(on_host.sum())
 
         stats, blk_off, bs, bq, bt, cs_off, cs_raw = \
             native_stage_emit_batch(

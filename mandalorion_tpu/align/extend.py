@@ -9,8 +9,8 @@ The chain (align/chain.py) leaves three kinds of work:
 - read-end tails: extension (semi-global) affine DP with best-cell stop.
 
 DP problems are collected per batch and solved through a pluggable backend
-(numpy here; the Pallas TPU kernel in align/kernels.py solves the same
-problem layout), then ops are stitched and emitted as extended PSL.
+(numpy here; the device DP in align/kernels.py solves the same problem
+layout), then ops are stitched and emitted as extended PSL.
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ class DpResult:
 def solve_dp_numpy(problems: Sequence[DpProblem],
                    cfg: AlignConfig) -> List[DpResult]:
     """Reference DP backend: affine-gap alignment, row-vectorized numpy.
-    Serves as the oracle for the Pallas kernel (tests/test_kernels.py)."""
+    Serves as the oracle for the device DP (tests/test_kernels.py)."""
     return [_solve_one(p, cfg) for p in problems]
 
 
@@ -120,7 +120,7 @@ def _row_step_np(h_prev, e_prev, sub, jidx, go, ge):
 
 def _traceback_bits(ptr: np.ndarray, qi: int, tj: int):
     """Walk packed pointer bits (H source 2b | E-ext | F-ext) to merged op
-    runs — shared with the rowscan/Pallas backends (align/kernels.py)."""
+    runs — shared with the rowscan backend (align/kernels.py)."""
     ops: List[Tuple[str, int, int]] = []
     i, j = qi, tj
     state = "H"
@@ -156,7 +156,7 @@ def _traceback_bits(ptr: np.ndarray, qi: int, tj: int):
 
 def _solve_one(p: DpProblem, cfg: AlignConfig) -> DpResult:
     """Affine-gap DP, fully row-vectorized (the same collapsed prefix-max
-    row math as the rowscan/Pallas kernels, numpy edition)."""
+    row math as the rowscan device DP, numpy edition)."""
     nq, nt = len(p.q), len(p.t)
     # fast path: an extension whose query is an exact prefix of the target
     # is optimally all-match (any other path scores lower) — the common

@@ -54,8 +54,8 @@ class AlignConfig:
     batch_reads: int = 512         # reads per device batch
     # note: -uf forward-splice and --secondary=no are structural (strand-
     # dependent motifs, primary-only emission), not knobs
-    dp_backend: str = "numpy"      # 'numpy' | 'rowscan' (pure JAX) |
-                                   # 'pallas' (TPU kernel); all three are
+    dp_backend: str = "numpy"      # 'numpy' (host native C++) |
+                                   # 'rowscan' (device, plain JAX); both
                                    # bit-identical (tests/test_kernels.py)
     chain_backend: str = "native"  # 'native' (host C++/numpy) | 'device'
                                    # (batched jit chain DP,
@@ -102,8 +102,9 @@ class PoaConfig:
                                    # (explicit opt-in to the vote engine
                                    # for >max_graph_len isoforms)
     backend: str = "auto"          # graph-DP execution backend: 'auto'
-                                   # (device when a mesh is installed,
-                                   # else native C++), 'native', 'device'
+                                   # (native C++, or the device kernel
+                                   # when the native library cannot be
+                                   # built), 'native', 'device'
 
 
 

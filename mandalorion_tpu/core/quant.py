@@ -8,7 +8,7 @@ isoforms are counted, but TPM divides by ALL reads in the sample
 rounded to 3 decimals.
 
 The count matrix itself is one segment-sum over (isoform_idx, sample_idx)
-pairs — the TPU-sharded variant in parallel/dist.py psums per-host partial
+pairs — the mesh-sharded variant in parallel/dist.py psums per-host partial
 matrices (SURVEY §2.3 merge collectives).
 """
 

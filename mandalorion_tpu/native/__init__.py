@@ -198,10 +198,6 @@ def load_native() -> Optional[ctypes.CDLL]:
         lib.poa_graph_consensus_handle_c.restype = ctypes.c_int64
         lib.poa_graph_consensus_handle_c.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p]
-        lib.poa_graph_apply_runs_c.restype = None
-        lib.poa_graph_apply_runs_c.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64]
         _LIB = lib
     except (subprocess.SubprocessError, OSError,
             AttributeError) as exc:

@@ -663,37 +663,6 @@ int64_t poa_graph_consensus_handle_c(void* h, uint8_t* out) {
     return consensus(((GraphHandle*)h)->g, out);
 }
 
-// Apply a run-compressed device traceback (poa/pallas_kernel.py
-// reverse-sweep records, EMISSION order end->start):
-//   rec0 = qi_hi | type << 16, rec1 = qi_lo | (rank + 2) << 16
-//   type 0 diag (one (qi_hi, rank) step), 1 del ((-1, rank)),
-//   2 insertion run ((qi, -1) for qi_lo..qi_hi ascending in forward
-//   order). Expands to exactly the XLA walk's step sequence, then
-//   threads the query like poa_graph_apply_c.
-void poa_graph_apply_runs_c(void* h, const uint8_t* q,
-                            const int32_t* recs, int64_t k) {
-    GraphHandle* gh = (GraphHandle*)h;
-    std::vector<int32_t> steps;
-    steps.reserve(4 * k);
-    for (int64_t i = k - 1; i >= 0; i--) {
-        int32_t rec0 = recs[2 * i], rec1 = recs[2 * i + 1];
-        int32_t type = (rec0 >> 16) & 3;
-        int32_t qi_hi = rec0 & 0xFFFF;
-        int32_t qi_lo = rec1 & 0xFFFF;
-        int32_t rank = (rec1 >> 16) - 2;
-        if (type == 2) {
-            for (int32_t qi = qi_lo; qi <= qi_hi; qi++) {
-                steps.push_back(qi);
-                steps.push_back(-1);
-            }
-        } else {
-            steps.push_back(type == 0 ? qi_hi : -1);
-            steps.push_back(rank >= 0 ? gh->order[rank] : -1);
-        }
-    }
-    apply_path(gh->g, q, steps.data(), (int64_t)steps.size() / 2);
-}
-
 // Single alignment against an externally-described graph (rank space:
 // base codes per rank, CSR predecessor ranks+1 with 0 = virtual source,
 // is_end flags) — the parity-test entry. Writes forward-order

@@ -12,6 +12,9 @@ indexes larger than one host's memory). SURVEY §2.3 merge collectives.
 from __future__ import annotations
 
 import functools
+
+import numpy as np
+
 import jax
 import jax.numpy as jnp
 try:
@@ -26,7 +29,7 @@ _CHECK_KW = ("check_vma" if "check_vma"
              in _inspect.signature(shard_map).parameters else "check_rep")
 from jax.sharding import Mesh, PartitionSpec as P
 
-from mandalorion_tpu.align.kernels import row_step, _jnp_roll, _row0, NEG
+from mandalorion_tpu.align.kernels import row_step, _row0, NEG
 
 
 def _score_batch(q_codes: jnp.ndarray, t_codes: jnp.ndarray,
@@ -34,7 +37,7 @@ def _score_batch(q_codes: jnp.ndarray, t_codes: jnp.ndarray,
                  ge: int = 1) -> jnp.ndarray:
     """Vectorized alignment scores for a padded read batch: (B, L) query
     codes vs (B, 128) target windows -> (B,) best global scores. The row
-    math is shared with the Pallas kernel (align/kernels.row_step)."""
+    math is shared with the device DP (align/kernels.row_step)."""
 
     def one(q, t):
         jidx = jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1)
@@ -47,7 +50,7 @@ def _score_batch(q_codes: jnp.ndarray, t_codes: jnp.ndarray,
             h, e = carry
             h2, e2, _ = row_step(h, e, t[None, :], q_i[None, None], jidx,
                                  match=match, mismatch=mismatch, go=go,
-                                 ge=ge, roll_fn=_jnp_roll)
+                                 ge=ge)
             return (h2, e2), None
 
         e0 = jnp.full((1, 128), NEG, jnp.int32) + 0 * t[0]
@@ -115,15 +118,8 @@ def shard_index_arrays(index, n_shards: int):
     return hashes, positions, lens
 
 
-def sharded_index_lookup(mesh: Mesh, shard_hashes, shard_positions,
-                         shard_lens, queries, max_occ: int):
-    """Seed lookup against a hash-axis-sharded genome index: each device
-    binary-searches its own shard, expands up to max_occ hits per query,
-    and the candidate hits all_gather across the axis (SURVEY §2.3's
-    sharded-index alternative to per-host index replication). Returns
-    (positions (n_shards, nq, max_occ), valid mask) — a query's hits live
-    on the single shard owning its hash range. Runs under the x64 context
-    (the 64-bit minimizer hashes would truncate in 32-bit mode)."""
+@functools.lru_cache(maxsize=8)
+def _sharded_lookup_fn(mesh: Mesh, max_occ: int):
     axis = mesh.axis_names[0]
 
     @functools.partial(
@@ -150,8 +146,31 @@ def sharded_index_lookup(mesh: Mesh, shard_hashes, shard_positions,
                 jax.lax.all_gather(valid, axis),
                 jax.lax.all_gather(cnt, axis))
 
+    return jax.jit(run)
+
+
+def sharded_index_lookup(mesh: Mesh, shard_hashes, shard_positions,
+                         shard_lens, queries, max_occ: int):
+    """Seed lookup against a hash-axis-sharded genome index: each device
+    binary-searches its own shard, expands up to max_occ hits per query,
+    and the candidate hits all_gather across the axis (SURVEY §2.3's
+    sharded-index alternative to per-host index replication). Returns
+    (positions (n_shards, nq, max_occ), valid mask) — a query's hits live
+    on the single shard owning its hash range. Runs under the x64 context
+    (the 64-bit minimizer hashes would truncate in 32-bit mode). The query
+    axis is padded to a power of two (floor 64) so reads of any length
+    share a handful of compiled shapes; padding rows are sliced off."""
+    queries = np.asarray(queries)
+    nq = len(queries)
+    padded = 64
+    while padded < nq:
+        padded *= 2
+    queries = np.concatenate(
+        [queries, np.zeros(padded - nq, queries.dtype)])
     with jax.enable_x64(True):
-        return run(shard_hashes, shard_positions, shard_lens, queries)
+        pos, valid, cnt = _sharded_lookup_fn(mesh, max_occ)(
+            shard_hashes, shard_positions, shard_lens, queries)
+        return pos[:, :nq], valid[:, :nq], cnt[:, :nq]
 
 
 def mesh_count_matrix(mesh: Mesh, flat_ids: "np.ndarray",

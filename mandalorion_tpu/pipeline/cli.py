@@ -52,10 +52,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-P", "--pacbio", default=False, action="store_true",
                    help=argparse.SUPPRESS)
     p.add_argument("--dp_backend", default="numpy",
-                   choices=["numpy", "rowscan", "pallas"],
+                   choices=["numpy", "rowscan"],
                    help="gap-fill DP backend (bit-identical): numpy = "
-                        "host native C++, rowscan = pure JAX, pallas = "
-                        "TPU kernel")
+                        "host native C++, rowscan = batched on the "
+                        "accelerator (plain JAX)")
     p.add_argument("--chain_backend", default="native",
                    choices=["native", "device"],
                    help="chain DP backend: native host path or one "
@@ -67,10 +67,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "alignment; batched on device per locus)")
     p.add_argument("--consensus_backend", default="auto",
                    choices=["auto", "native", "device"],
-                   help="graph-POA execution backend: auto (device when "
-                        "a mesh is installed, else the host C++ engine), "
-                        "native, or device (batched kernel; the Pallas "
-                        "forward pass on real accelerators)")
+                   help="graph-POA execution backend: auto (the host "
+                        "C++ engine; the device kernel only when the "
+                        "native library cannot be built), native, or "
+                        "device (batched on the accelerator)")
     p.add_argument("--index_backend", default="replicated",
                    choices=["replicated", "sharded"],
                    help="genome index placement: replicated per host, or "

@@ -86,7 +86,9 @@ def _fork_safe() -> bool:
     """Fork pools only while the process is single-threaded with no live
     JAX backend (see runtime.fork_ok); otherwise run serially — the
     workers here inherit big read-only state (the genome index) by
-    copy-on-write, which spawn cannot replicate cheaply."""
+    copy-on-write, which spawn cannot replicate cheaply. A SpliceAligner
+    built with a device backend brings the backend up, so on the device
+    route module A (and every later stage) runs in this one process."""
     from mandalorion_tpu.runtime import fork_ok
     return fork_ok()
 
@@ -196,6 +198,9 @@ def module_a(paths: Paths, cfg: PipelineConfig, fasta_files: str,
     dt = time.time() - t0
     print(f"\taligned {n_reads} reads in {dt:.1f}s "
           f"({n_reads / max(dt, 1e-9):.1f} reads/s)")
+    if cfg.align.dp_backend != "numpy":
+        print(f"\t{aligner.dp_on_host} DP problems outside the device "
+              "envelope solved on the host")
     if cfg.align.emit_sam:
         from mandalorion_tpu.io.psl import read_psl
         from mandalorion_tpu.io.sam import write_sam

@@ -3,11 +3,11 @@
 
 Two engines: the default STAR path (poa/star.py) — backbone alignment +
 column votes, whose DP fills ride the same batched backends as genome
-alignment (numpy / rowscan / Pallas TPU kernel) — and the general graph
+alignment (native host solver / device rowscan) — and the general graph
 engine (poa/graph.py): sequence-to-DAG affine DP over topologically
 ordered node arrays with a query band, incremental graph growth per read,
-and heaviest-bundle consensus extraction. A dedicated batched
-sequence-to-graph Pallas kernel is round-2 roadmap (NOTES.md).
+and heaviest-bundle consensus extraction, run by the native C++ engine or
+batched on the device (poa/kernels.py).
 """
 
 from mandalorion_tpu.poa.consensus import determine_consensus  # noqa: F401

@@ -185,10 +185,11 @@ def _graph_backend() -> str:
 def resolve_consensus_jobs(jobs: Sequence[ConsensusJob],
                            backend: Optional[str] = None
                            ) -> List[Tuple[str, List[str]]]:
-    """Compute phase: run every pending graph-POA job, grouped by params
-    (the adaptive -S analogue can split the band), through the selected
+    """Compute phase: run every pending graph-POA job through the selected
     backend — batched device dispatches across whatever set of loci the
-    jobs came from, or the native C++ engine on the host."""
+    jobs came from (jobs whose params differ only in their band share
+    dispatches; each problem carries its own band), or the native C++
+    engine on the host."""
     import dataclasses
     backend = backend or _graph_backend()
     if backend == "native":
@@ -215,12 +216,12 @@ def resolve_consensus_jobs(jobs: Sequence[ConsensusJob],
     by_params: dict = {}
     for i, job in enumerate(jobs):
         if job.result is None:
-            key = dataclasses.astuple(job.params)
+            key = dataclasses.astuple(dataclasses.replace(job.params,
+                                                          band=0))
             by_params.setdefault(key, []).append(i)
     for ids in by_params.values():
-        params = jobs[ids[0]].params
         consensi = poa_consensus_batch([jobs[i].oriented for i in ids],
-                                       params)
+                                       [jobs[i].params for i in ids])
         for i, cons in zip(ids, consensi):
             jobs[i].result = (_decode(cons) if len(cons)
                               else jobs[i].fallback)

@@ -15,7 +15,7 @@ Consensus = heaviest-bundle path (max edge-weight DP over topological
 order), abPOA's `-r 0` output mode.
 
 Exact abPOA-binary output equivalence is unverifiable in this environment
-(no abpoa binary, zero egress — see NOTES.md); the scoring model, tie-break
+(no abpoa binary, no network); the scoring model, tie-break
 conventions, and graph-construction order are pinned here and mirrored
 bit-identically by the batched device kernel (poa/kernels.py).
 """

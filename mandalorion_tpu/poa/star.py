@@ -3,8 +3,8 @@
 The production consensus path for high-accuracy (R2C2/ccs) reads: every
 read aligns independently against the first read (the backbone) through the
 same minimizer-chain + batched-DP machinery as genome alignment — so the
-per-read cost is a handful of small DP fills, all batchable on the TPU
-kernel — then per-column votes (match base / deletion) and per-gap
+per-read cost is a handful of small DP fills, all batchable on the device
+DP — then per-column votes (match base / deletion) and per-gap
 insertion votes produce the consensus. For ~1 % error reads this matches
 partial-order alignment consensus (poa/graph.py, kept as the general
 engine) while being orders of magnitude faster; see PoaConfig.engine.

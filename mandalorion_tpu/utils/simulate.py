@@ -289,3 +289,51 @@ def make_dataset(out_dir: str, n_genes: int = 8, n_reads_per_gene: int = 250,
     with open(os.path.join(out_dir, "ann.gtf"), "w") as fh:
         fh.write("".join(gtf))
     return len(reads)
+
+
+def make_chromosome_dataset(out_dir: str, n_genes: int = 100,
+                            reads_per_gene: int = 1000,
+                            genome_mbp: int = 50, seed: int = 0) -> int:
+    """Write genome.fasta / reads.fasta / ann.gtf for the config-3 shape
+    (BASELINE.json configs[2]: one chromosome, ~100k reads): a
+    `genome_mbp` Mbp chromosome with `n_genes` evenly spaced genes of 2-6
+    exons (150-1200 bp, introns 200-30,000 bp, canonical motifs, strands
+    alternating) and `reads_per_gene` reads each at 1% substitutions.
+    Returns the read count."""
+    rng = np.random.default_rng(seed)
+    genome = make_genome(genome_mbp * 1_000_000, seed=seed + 4)
+    span = len(genome) // n_genes
+    glist = list(genome)
+    genes = []
+    gtf = []
+    for g in range(n_genes):
+        pos = g * span + 5000
+        exons = []
+        for _ in range(int(rng.integers(2, 7))):
+            ln = int(rng.integers(150, 1200))
+            exons.append((pos, pos + ln))
+            pos += ln + int(rng.integers(200, 30_000))
+        strand = "+" if g % 2 == 0 else "-"
+        donor, acceptor = ("GT", "AG") if strand == "+" else ("CT", "AC")
+        for (_s1, e1), (s2, _e2) in zip(exons, exons[1:]):
+            glist[e1], glist[e1 + 1] = donor[0], donor[1]
+            glist[s2 - 2], glist[s2 - 1] = acceptor[0], acceptor[1]
+        genes.append((exons, strand))
+        gtf.append(gtf_lines("chr1", f"G{g}", f"T{g}", exons,
+                             strand=strand))
+    genome = "".join(glist)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "genome.fasta"), "w") as fh:
+        fh.write(f">chr1\n{genome}\n")
+    with open(os.path.join(out_dir, "ann.gtf"), "w") as fh:
+        fh.write("".join(gtf))
+    from mandalorion_tpu.io.fastx import revcomp
+    with open(os.path.join(out_dir, "reads.fasta"), "w") as fh:
+        for gi, (exons, strand) in enumerate(genes):
+            t = transcript_seq(genome, exons)
+            if strand == "-":
+                t = revcomp(t)
+            for ri in range(reads_per_gene):
+                r, _ = mutate_read(t, rng, 0.01)
+                fh.write(f">g{gi}r{ri}\n{r}\n")
+    return n_genes * reads_per_gene

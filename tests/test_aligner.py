@@ -333,7 +333,7 @@ def test_occ_hist_quantile_matches_direct():
 ])
 def test_error_rate_accuracy_gates(err, min_exact, min_close):
     """Quantitative module-A gates at nanopore-like error rates (VERDICT
-    r1 #8): the NOTES figures (100% mapped; 100/97/97% structures within
+    r1 #8): the measured figures (100% mapped; 100/97/97% structures within
     6 nt and 86/78/66% exact at 3/5/8% error) asserted as CI gates with
     margin, so aligner regressions fail tests rather than only showing up
     in prose."""

@@ -223,6 +223,6 @@ cat {ours}/tmp/mm2Alignments.sam
     "abPOA's convex dual-affine scoring model and is optimal vs a "
     "brute-force convex Gotoh oracle (tests/test_poa.py), and the device "
     "kernel is bit-identical to the Python engine. abPOA's exact traceback "
-    "tie-break order and adaptive-band shape remain unpinned (NOTES.md)."))
+    "tie-break order and adaptive-band shape remain unpinned."))
 def test_consensus_fasta_matches_real_abpoa_binary():
     raise AssertionError("requires the real abpoa binary")

@@ -1,14 +1,11 @@
-"""DP backend equivalence: numpy oracle == pure-JAX rowscan == Pallas
-kernel (interpret mode). The rowscan shares the kernel's row math, so the
-broad random sweep runs against it cheaply; a small interpret-mode sweep
-checks the Pallas plumbing bit-for-bit."""
+"""DP backend equivalence: numpy oracle == native C++ solver == device
+rowscan (plain JAX, here on the CPU backend), bit for bit."""
 
 import numpy as np
 import pytest
 
 from mandalorion_tpu.align.extend import DpProblem, solve_dp_numpy
-from mandalorion_tpu.align.kernels import (
-    solve_dp_pallas, solve_dp_rowscan)
+from mandalorion_tpu.align.kernels import solve_dp_rowscan
 from mandalorion_tpu.config import AlignConfig
 
 MAXT = 127  # single 128-lane bucket bound (this file's small-case regime)
@@ -78,18 +75,6 @@ def test_rowscan_oversize_falls_back():
 
 
 @pytest.mark.parametrize("mode,bonus", [("global", 0),
-                                        ("extend_right", 12)])
-def test_pallas_interpret_matches_oracle(mode, bonus):
-    # small sweep: interpret mode is slow; rowscan covers the math broadly
-    cfg = AlignConfig(end_bonus=bonus)
-    rng = np.random.default_rng(7)
-    problems = _random_problems(rng, 8, mode, max_len=24)
-    _assert_same(solve_dp_numpy(problems, cfg),
-                 solve_dp_pallas(problems, cfg, interpret=True),
-                 f"pallas-{mode}-b{bonus}")
-
-
-@pytest.mark.parametrize("mode,bonus", [("global", 0),
                                         ("extend_right", 0),
                                         ("extend_right", 12),
                                         ("extend_left", 12)])
@@ -140,8 +125,6 @@ def test_zdrop_identical_across_backends(zdrop, bonus):
     ref = solve_dp_numpy(problems, cfg)
     _assert_same(ref, solve_dp_rowscan(problems, cfg), f"rowscan-z{zdrop}")
     _assert_same(ref, solve_dp_native(problems, cfg), f"native-z{zdrop}")
-    _assert_same(ref, solve_dp_pallas(problems, cfg, interpret=True),
-                 f"pallas-z{zdrop}")
 
 
 def test_zdrop_truncates_junk_extension():
@@ -161,9 +144,9 @@ def test_zdrop_truncates_junk_extension():
 
 @pytest.mark.parametrize("n", [2, 8])
 def test_backends_sharded_over_mesh_identical(n):
-    """With a pipeline mesh installed, the rowscan and Pallas dispatches
-    shard their problem batch over the devices (Pallas via shard_map,
-    per-shard grids) and stay bit-identical to the oracle."""
+    """With a pipeline mesh installed, the rowscan dispatch shards its
+    problem batch over the devices and stays bit-identical to the
+    oracle."""
     from mandalorion_tpu.parallel.mesh import make_mesh, use_mesh
 
     cfg = AlignConfig(end_bonus=12)
@@ -173,14 +156,12 @@ def test_backends_sharded_over_mesh_identical(n):
     with use_mesh(make_mesh(n)):
         _assert_same(ref, solve_dp_rowscan(problems, cfg),
                      f"rowscan-mesh{n}")
-        _assert_same(ref, solve_dp_pallas(problems, cfg, interpret=True),
-                     f"pallas-mesh{n}")
 
 
 @pytest.mark.parametrize("mode", ["global", "extend_right"])
 def test_wide_envelope_matches_oracle(mode):
     """Targets beyond 127 lanes and queries beyond 256 rows run on device
-    (width-bucketed lanes, row-streaming grid) and stay bit-identical to
+    (width-bucketed lanes, quantized row caps) and stay bit-identical to
     the host oracle — the end-extension envelope (VERDICT r1 #4)."""
     from mandalorion_tpu.align.kernels import MAX_T_DEVICE, _width_for
 
@@ -198,8 +179,6 @@ def test_wide_envelope_matches_oracle(mode):
     assert {_width_for(len(p.t)) for p in problems} >= {512, 1024, 2304}
     ref = solve_dp_numpy(problems, cfg)
     _assert_same(ref, solve_dp_rowscan(problems, cfg), f"rowscan-{mode}")
-    _assert_same(ref, solve_dp_pallas(problems, cfg, interpret=True),
-                 f"pallas-{mode}")
 
 
 def test_device_fallback_only_degenerate():

@@ -93,7 +93,7 @@ def test_consensus_noisy_isoform():
     assert cons == true
 
 
-# --------------------------------------------------- batched TPU kernel
+# --------------------------------------------------- batched device kernel
 
 def _mutate(rng, base, err):
     out = []

@@ -1,17 +1,17 @@
-"""Pallas POA forward kernel vs the XLA fori_loop forward pass.
+"""The device POA route (XLA forward pass + on-device walk, with the
+native C++ graph staging) against the pure-Python graph oracle.
 
-Both feed the same traceback walk, so consensus equality across
-randomized graphs exercises the full matrix contract (scores, tie-breaks,
-band offsets, insertion origins). Runs the kernel in interpret mode on
-the CPU test mesh; the compiled TPU build is exercised by the bench and
-spot-check tools."""
+Consensus equality across randomized adaptive-band graphs exercises the
+whole matrix contract (scores, tie-breaks, band offsets, insertion
+origins); indel-heavy reads shift the band offsets between rows, which is
+where the window realignment must stay exact."""
 
 import numpy as np
 import pytest
 
 import synthdata
 from mandalorion_tpu.align.encode import encode, decode
-from mandalorion_tpu.poa.graph import PoaGraph, PoaParams, poa_consensus
+from mandalorion_tpu.poa.graph import PoaParams, poa_consensus
 from mandalorion_tpu.poa.kernels import poa_consensus_batch
 
 
@@ -25,64 +25,59 @@ def _sets(n_iso, n_reads, length, err, seed0):
     return sets
 
 
-@pytest.mark.parametrize("err,length", [(0.02, 250), (0.08, 400)])
-def test_pallas_forward_matches_xla(monkeypatch, err, length):
-    sets = _sets(3, 5, length, err, 77)
-    params = PoaParams(band=20, adaptive=True)
-    monkeypatch.setenv("MANDO_POA_PALLAS", "interpret")
-    cons_pallas = poa_consensus_batch(sets, params)
-    monkeypatch.setenv("MANDO_POA_PALLAS", "0")
-    cons_xla = poa_consensus_batch(sets, params)
-    for a, b in zip(cons_pallas, cons_xla):
-        assert decode(a) == decode(b)
+def _indel_sets(n_iso, n_reads, length, n_edits, max_run, seed0):
+    """Reads carrying several deletions and insertions of up to max_run
+    bases each."""
+    rng = np.random.default_rng(seed0)
+    sets = []
+    for i in range(n_iso):
+        true = synthdata.make_genome(length, seed=seed0 + i)
+        reads = []
+        for _ in range(n_reads):
+            r = true
+            for _k in range(n_edits):
+                p = int(rng.integers(20, len(r) - 20))
+                if rng.random() < 0.5:
+                    r = r[:p] + r[p + int(rng.integers(1, max_run + 1)):]
+                else:
+                    ins = "".join("ACGT"[int(x)] for x in
+                                  rng.integers(0, 4, max_run))
+                    r = r[:p] + ins + r[p:]
+            reads.append(encode(r))
+        sets.append(reads)
+    return sets
 
 
-def test_pallas_matches_python_oracle(monkeypatch):
-    sets = _sets(2, 6, 200, 0.03, 31)
-    params = PoaParams(band=20, adaptive=True)
-    monkeypatch.setenv("MANDO_POA_PALLAS", "interpret")
-    cons_pallas = poa_consensus_batch(sets, params)
-    for ss, got in zip(sets, cons_pallas):
-        assert decode(poa_consensus(ss, params)) == decode(got)
+@pytest.mark.parametrize("kind,band", [("subst", 20), ("indel", 24),
+                                       ("indel_wide", 150)])
+def test_pallas_matches_python_oracle(kind, band):
+    if kind == "subst":
+        sets = _sets(2, 6, 200, 0.03, 31)
+    elif kind == "indel":
+        sets = _indel_sets(2, 6, 300, 3, 3, 91)
+    else:  # band 150 puts the window at W=512
+        sets = _indel_sets(2, 5, 420, 4, 5, 17)
+    params = PoaParams(band=band, adaptive=True)
+    got = poa_consensus_batch(sets, params)
+    for ss, cons in zip(sets, got):
+        assert decode(poa_consensus(ss, params)) == decode(cons)
 
 
-def test_pallas_indel_heavy_reads(monkeypatch):
-    """Insertion/deletion-rich reads shift band offsets between rows —
-    the window-realignment (dynamic roll) path must stay exact."""
-    rng = np.random.default_rng(5)
-    true = synthdata.make_genome(300, seed=91)
-    reads = []
-    for _ in range(6):
-        r = true
-        for _k in range(3):
-            p = int(rng.integers(20, len(r) - 20))
-            if rng.random() < 0.5:
-                r = r[:p] + r[p + int(rng.integers(1, 4)):]
-            else:
-                ins = "".join("ACGT"[int(x)]
-                              for x in rng.integers(0, 4, 3))
-                r = r[:p] + ins + r[p:]
-        reads.append(encode(r))
-    params = PoaParams(band=24, adaptive=True)
-    monkeypatch.setenv("MANDO_POA_PALLAS", "interpret")
-    got = poa_consensus_batch([reads], params)
-    monkeypatch.setenv("MANDO_POA_PALLAS", "0")
-    want = poa_consensus_batch([reads], params)
-    assert decode(got[0]) == decode(want[0])
-
-
-def test_max_back_distance_gate():
-    from mandalorion_tpu.poa.kernels import graph_arrays, _pow2_at_least
-    from mandalorion_tpu.poa.pallas_kernel import max_back_distance
-    g = PoaGraph(encode("ACGTACGTAC"))
-    g.add_read(encode("ACGTTCGTAC"), PoaParams())
-    order = g.topo_order()
-    n_cap = _pow2_at_least(len(order), floor=16)
-    _b, preds, _e, _o = graph_arrays(g, n_cap, 4, order)
-    back = max_back_distance(preds, len(order))
-    # a near-linear graph's predecessors are close by
-    assert 1 <= back < 16
-    # virtual-source rows (preds_r == 0) must not count
-    preds2 = preds.copy()
-    preds2[len(order) - 1] = [0, -1, -1, -1]
-    assert max_back_distance(preds2, len(order)) <= back
+def test_mixed_bands_share_dispatches(monkeypatch):
+    """Sets whose params differ only in band run in the same lockstep
+    dispatches (one per round), each problem with its own band, and match
+    the oracle run at that set's band."""
+    from mandalorion_tpu.poa import kernels as kn
+    sets = _sets(3, 5, 300, 0.03, 7)
+    params = [PoaParams(band=b, adaptive=True) for b in (16, 24, 40)]
+    calls = []
+    orig = kn._dispatch_chunk
+    monkeypatch.setattr(kn, "_dispatch_chunk",
+                        lambda *a: calls.append(a[6].copy()) or orig(*a))
+    got = poa_consensus_batch(sets, params)
+    assert len(calls) == 4                      # rounds 1..4, one chunk
+    assert list(calls[0][:3]) == [16, 24, 40]   # per-problem bands
+    for ss, p, cons in zip(sets, params, got):
+        assert decode(poa_consensus(ss, p)) == decode(cons)
+    with pytest.raises(ValueError, match="only in band"):
+        poa_consensus_batch(sets[:2], [params[0], PoaParams(band=16)])

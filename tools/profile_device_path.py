@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
-"""Profile the device-path module A (chain=device dp=pallas) on the bench
-workload: per-phase wall attribution (seed staging / chain dispatch+fetch /
-fill staging / DP dispatch+fetch / emit) so VERDICT r4 #1's budget is
-reproducible before and after the staging-to-native work.
+"""Profile the device-path module A (chain=device dp=rowscan) on the bench
+workload: per-phase wall attribution (chain dispatch+fetch / DP
+dispatch+fetch / native staging, the rest) against the host path.
 
 Usage: python tools/profile_device_path.py [n_reads_per_gene]
 """
@@ -29,7 +28,7 @@ def main():
         genome = fastx_to_dict(os.path.join(tmp, "genome.fasta"))
         reads = [(nm, sq) for nm, sq, _q in
                  read_fastx(os.path.join(tmp, "reads.fasta"))]
-        cfg = AlignConfig(chain_backend="device", dp_backend="pallas")
+        cfg = AlignConfig(chain_backend="device", dp_backend="rowscan")
         al = SpliceAligner(genome, cfg)
         host = SpliceAligner(genome, AlignConfig())
 
@@ -49,8 +48,8 @@ def main():
         import mandalorion_tpu.align.chain_kernel as ck
         import mandalorion_tpu.align.kernels as kn
         times = {}
-        orig_chain = ck.chain_batch_jax
-        orig_solve = kn.solve_dp_pallas
+        orig_chain = ck.chain_batch_rows
+        orig_solve = kn.solve_dp_fused
 
         def timed_chain(*a, **k):
             t = time.time()
@@ -65,16 +64,15 @@ def main():
             times["dp_total"] = times.get("dp_total", 0) + time.time() - t
             return r
 
-        # aligner binds names at import; patch the module objects it uses
-        import mandalorion_tpu.align.aligner as alg
-        ck.chain_batch_jax_orig = orig_chain
-        ck.chain_batch_jax = timed_chain
-        al.dp_backend = timed_solve
+        # the staged path imports both at call time from their modules
+        ck.chain_batch_rows = timed_chain
+        kn.solve_dp_fused = timed_solve
 
         t0 = time.time()
         al.map_batch(reads)
         t_dev = time.time() - t0
-        ck.chain_batch_jax = orig_chain
+        ck.chain_batch_rows = orig_chain
+        kn.solve_dp_fused = orig_solve
 
         staging = t_dev - times.get("chain_total", 0) \
             - times.get("dp_total", 0)
@@ -83,7 +81,7 @@ def main():
         print(f"device module A:          {t_dev*1000:8.1f} ms")
         print(f"  chain (stage+disp+fetch):{times.get('chain_total',0)*1000:7.1f} ms")
         print(f"  dp    (stage+disp+fetch):{times.get('dp_total',0)*1000:7.1f} ms")
-        print(f"  python staging (rest):   {staging*1000:7.1f} ms")
+        print(f"  native staging (rest):   {staging*1000:7.1f} ms")
 
         # finer: cProfile the device batch
         import cProfile

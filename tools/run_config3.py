@@ -14,60 +14,22 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
-sys.path.insert(0, os.path.join(REPO, "tests"))
 
 
 def main():
-    import numpy as np
-    import synthdata
     from mandalorion_tpu.config import PipelineConfig
-    from mandalorion_tpu.io.fastx import revcomp, write_fasta
     from mandalorion_tpu.pipeline.stages import run_pipeline
+    from mandalorion_tpu.utils.simulate import make_chromosome_dataset
 
     n_genes = int(sys.argv[1]) if len(sys.argv) > 1 else 100
     per_gene = int(sys.argv[2]) if len(sys.argv) > 2 else 1000
     mbp = int(sys.argv[3]) if len(sys.argv) > 3 else 50
 
     tmp = tempfile.mkdtemp(prefix="config3_")
-    rng = np.random.default_rng(0)
-    print(f"generating {mbp} Mbp genome ...", flush=True)
-    genome = synthdata.make_genome(mbp * 1_000_000, seed=4)
-    span = len(genome) // n_genes
-    genes = []
-    glist = list(genome)
-    gtf = []
-    for g in range(n_genes):
-        base = g * span + 5000
-        exons = []
-        pos = base
-        for _ in range(int(rng.integers(2, 7))):
-            ln = int(rng.integers(150, 1200))
-            exons.append((pos, pos + ln))
-            pos += ln + int(rng.integers(200, 30_000))
-        strand = "+" if g % 2 == 0 else "-"
-        donor, acceptor = ("GT", "AG") if strand == "+" else ("CT", "AC")
-        for (s1, e1), (s2, e2) in zip(exons, exons[1:]):
-            glist[e1], glist[e1 + 1] = donor[0], donor[1]
-            glist[s2 - 2], glist[s2 - 1] = acceptor[0], acceptor[1]
-        genes.append((exons, strand))
-        gtf.append(synthdata.gtf_lines("chr1", f"G{g}", f"T{g}", exons,
-                                       strand=strand))
-    genome = "".join(glist)
-    with open(os.path.join(tmp, "genome.fasta"), "w") as fh:
-        fh.write(f">chr1\n{genome}\n")
-    with open(os.path.join(tmp, "ann.gtf"), "w") as fh:
-        fh.write("".join(gtf))
-
-    print(f"generating {n_genes * per_gene} reads ...", flush=True)
+    print(f"generating {mbp} Mbp genome and {n_genes * per_gene} reads ...",
+          flush=True)
     t_gen = time.time()
-    with open(os.path.join(tmp, "reads.fasta"), "w") as fh:
-        for gi, (exons, strand) in enumerate(genes):
-            t = synthdata.transcript_seq(genome, exons)
-            if strand == "-":
-                t = revcomp(t)
-            for ri in range(per_gene):
-                r, _ = synthdata.mutate_read(t, rng, 0.01)
-                fh.write(f">g{gi}r{ri}\n{r}\n")
+    make_chromosome_dataset(tmp, n_genes, per_gene, mbp)
     print(f"  ({time.time() - t_gen:.0f}s)", flush=True)
 
     n_reads = n_genes * per_gene
