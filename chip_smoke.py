@@ -152,6 +152,34 @@ def chain_candidates(seed: int, n_cand: int = 1024):
     return aligner, codes, n, c_read, c_strand, c_tbase, c_nseg, segs
 
 
+def check_chain_costs(max_diff: int = 400_000) -> int:
+    """The chain kernel's float32 gap costs, compiled for the device, vs
+    numpy's separately rounded multiply and add, bit for bit: the indel
+    cost at every gap size 0..max_diff and the intron cost at every
+    frexp exponent 1..63 (an FMA contraction would differ in the last
+    bit). Returns the number of values compared."""
+    import jax
+    from mandalorion_tpu.align.chain_kernel import indel_cost, intron_cost
+    diff = np.arange(max_diff + 1, dtype=np.float32)
+    # intron_cost(d) takes the frexp exponent e of d: d = 2**(e-1) covers
+    # every e from 1 to 63 (and d = 0 clamps to 1, e = 1)
+    d_pow = np.float32(2.0) ** np.arange(-1, 63, dtype=np.float32)
+    f = jax.jit(lambda d, p, z: (indel_cost(d, 4.0, 0.3, z),
+                                 intron_cost(p, 12.0, z)))
+    # the kernel's zero comes from an input; so does this one
+    zero = np.zeros((), np.int32)
+    got_i, got_n = (np.asarray(x) for x in f(diff, d_pow, zero))
+    want_i = np.float32(4.0) + np.float32(0.3) * diff
+    e = np.frexp(np.maximum(d_pow, np.float32(1.0)))[1].astype(np.float32)
+    want_n = np.float32(12.0) + np.float32(0.01) * e
+    bad_i = int((got_i.view(np.int32) != want_i.view(np.int32)).sum())
+    bad_n = int((got_n.view(np.int32) != want_n.view(np.int32)).sum())
+    if bad_i or bad_n:
+        raise AssertionError(f"chain costs differ from numpy in {bad_i} "
+                             f"indel and {bad_n} intron values")
+    return len(diff) + len(d_pow)
+
+
 def check_chain(seed: int, widths=(64, 128, 256, 512), batch: int = 1024,
                 n_cand: int = 1024, verbose: bool = True):
     """Chain kernel at each segment width vs seed_chain_c: the decoded
@@ -259,33 +287,23 @@ def dp_class_problems(rng, width: int, max_q: int, n: int):
 
 def check_dp_class(width: int, max_q: int, seed: int, n=None,
                    timing: bool = True):
-    """The fused device DP (solve_dp_fused, the staged module-A entry) on
-    one (width, rows) class at its fixed dispatch batch vs
-    solve_dp_native. Returns (batch, compile_s, run_s, mem) — compile and
-    timing from an explicit lowering of the same jitted function."""
+    """The fused device DP on one (width, rows) class vs solve_dp_native,
+    on real problems: the class's fixed dispatch batch is filled with
+    problems of exactly that class and packed by pack_fused_chunk, as
+    solve_dp_fused packs them. The compiled function's output on those
+    arrays is checked, equal to solve_dp_fused's (the staged module-A
+    entry) and to the host solver, then timed on the same arrays, so the
+    time covers the DP, the start-cell pick and the walk of every
+    problem. Returns (batch, compile_s, run_s, mem, mean walk steps)."""
     import jax.numpy as jnp
     from mandalorion_tpu.align.extend import solve_dp_native
     from mandalorion_tpu.align.kernels import (
-        _dispatch_batch, _merge_steps, _rowscan_fused_fn, solve_dp_fused)
+        _dispatch_batch, _merge_steps, _rowscan_fused_fn, _unpack_fused,
+        pack_fused_chunk, solve_dp_fused)
     from mandalorion_tpu.config import AlignConfig
 
     cfg = AlignConfig()
     batch = _dispatch_batch(width, max_q)
-    compiled = None
-    if timing:
-        # lowered and compiled before the jitted call below runs, so the
-        # compile time is this class's own (or its persistent-cache load)
-        fn = _rowscan_fused_fn(cfg.match, cfg.mismatch, cfg.gap_open,
-                               cfg.gap_extend, cfg.end_bonus, cfg.zdrop,
-                               max_q, width)
-        args = (jnp.zeros((batch, max_q), jnp.int32),
-                jnp.full((batch, width), 9, jnp.int32),
-                jnp.zeros((batch, 1), jnp.int32),
-                jnp.zeros((batch, 1), jnp.int32),
-                jnp.zeros(batch, bool))
-        t = time.perf_counter()
-        compiled = fn.lower(*args).compile()
-        compile_s = time.perf_counter() - t
     rng = np.random.default_rng(seed + width * 7 + max_q)
     probs = dp_class_problems(rng, width, max_q, n or batch)
     # descriptors as stage_fill_batch_c emits them: problem k is read k;
@@ -307,9 +325,27 @@ def check_dp_class(width: int, max_q: int, seed: int, n=None,
     oriented = np.concatenate(q_parts)
     genome = np.concatenate(t_parts)
     probs_desc = tuple(desc[i] for i in range(6))
+    first = range(min(len(probs), batch))   # the first dispatch
+    args = [jnp.asarray(a) for a in pack_fused_chunk(
+        probs_desc, first, batch, max_q, width, oriented, read_off,
+        genome)]
+    fn = _rowscan_fused_fn(cfg.match, cfg.mismatch, cfg.gap_open,
+                           cfg.gap_extend, cfg.end_bonus, cfg.zdrop, max_q,
+                           width)
+    compile_s, compiled = None, fn
+    if timing:
+        t = time.perf_counter()
+        compiled = fn.lower(*args).compile()
+        compile_s = time.perf_counter() - t
+    c_meta, c_ks, c_buf = _unpack_fused(np.asarray(compiled(*args)))
     meta, ks, buf, on_host = solve_dp_fused(probs_desc, oriented, read_off,
                                             genome, cfg)
+    k = len(first)
     assert not on_host.any()
+    assert (np.array_equal(meta[:k], c_meta[:k])
+            and np.array_equal(ks[:k], c_ks[:k])
+            and np.array_equal(buf[:k], c_buf[:k, :buf.shape[1]])), \
+        f"DP class ({width}, {max_q}): solve_dp_fused != compiled call"
     want = solve_dp_native(probs, cfg)
     for k, (p, w) in enumerate(zip(probs, want)):
         if p.mode == "global":
@@ -325,9 +361,11 @@ def check_dp_class(width: int, max_q: int, seed: int, n=None,
                 f"DP class ({width}, {max_q}) problem {k} ({p.mode}, "
                 f"q {len(p.q)} t {len(p.t)}): device {got[1:]} "
                 f"{got[0][:6]} != host {(w.q_len, w.t_len)} {w.ops[:6]}")
-    if compiled is None:
-        return batch, None, None, None
-    return batch, compile_s, timed_runs(compiled, args), mem_summary(compiled)
+    steps = float(ks.mean())
+    if not timing:
+        return batch, None, None, None, steps
+    return (batch, compile_s, timed_runs(compiled, args),
+            mem_summary(compiled), steps)
 
 
 # ------------------------------------------------------------------ POA
@@ -439,16 +477,22 @@ def phase_kernels(seed: int, card_s: str) -> None:
     log("phase kernels: exact equality with the host engines (integer DP "
         "and float32 chain costs; no matrix product, so TF32 cannot "
         "arise)")
+    n_cost = check_chain_costs()
+    log(f"chain gap costs: {n_cost} float32 values (indel cost at every "
+        "gap size 0..400000, intron cost at every exponent 1..63) equal "
+        "numpy's bit for bit: no FMA contraction")
     check_chain(seed)
-    log(f"affine DP classes (fused rowscan: DP + start pick + walk), "
-        f"XLA-compiled, on {card_s}:")
-    print("  width  rows  batch  compile_s  run_ms  us/problem  memory")
+    log(f"affine DP classes (fused rowscan: DP + start pick + walk, on "
+        f"a full batch of problems of the class), XLA-compiled, on "
+        f"{card_s}:")
+    print("  width  rows  batch  walk_steps  compile_s  run_ms  us/problem"
+          "  memory")
     for width in WIDTHS:
         for max_q in Q_STEPS:
-            batch, c_s, r_s, mem = check_dp_class(width, max_q, seed)
-            print(f"  {width:5d} {max_q:5d} {batch:6d} {c_s:10.2f} "
-                  f"{r_s * 1e3:7.2f} {r_s * 1e6 / batch:10.2f}  {mem}",
-                  flush=True)
+            batch, c_s, r_s, mem, steps = check_dp_class(width, max_q, seed)
+            print(f"  {width:5d} {max_q:5d} {batch:6d} {steps:11.1f} "
+                  f"{c_s:10.2f} {r_s * 1e3:7.2f} {r_s * 1e6 / batch:10.2f}"
+                  f"  {mem}", flush=True)
     log("all 25 DP classes equal to solve_dp_native")
     # POA: window classes W 256..2048 (band sets W), n_cap up to 4096
     for band, n_iso, n_reads, length in ((30, 4, 6, 2000),
@@ -487,52 +531,54 @@ def phase_kernels(seed: int, card_s: str) -> None:
 @contextlib.contextmanager
 def device_route_probe():
     """Count module A's routes and host-solved DP problems (the staged
-    native path must be the one taken) and time the device layers:
-    seconds inside the chain-kernel, fused-DP and POA dispatches, each
-    including its host packing and the blocking fetch."""
+    native path must be the one taken on a replicated index) and time the
+    device layers: seconds inside the chain-kernel, affine-DP, sharded
+    index and POA dispatches, each including its host packing and the
+    blocking fetch."""
     from mandalorion_tpu.align import chain_kernel, kernels
     from mandalorion_tpu.align.aligner import SpliceAligner
+    from mandalorion_tpu.parallel.dist import ShardedIndex
     from mandalorion_tpu.poa import kernels as poa_kernels
     counts = {"staged_dp_calls": 0, "dp_on_host": 0, "python_staging": 0,
-              "chain_s": 0.0, "dp_s": 0.0, "poa_dispatches": 0,
-              "poa_s": 0.0}
-    orig = (kernels.solve_dp_fused, SpliceAligner._chain_batch_device,
-            chain_kernel.chain_batch_rows, poa_kernels._dispatch_chunk)
+              "chain_s": 0.0, "dp_s": 0.0, "lookup_s": 0.0,
+              "poa_dispatches": 0, "poa_s": 0.0}
+    patched = []
 
-    def fused(*a, **k):
-        t = time.perf_counter()
-        res = orig[0](*a, **k)
-        counts["dp_s"] += time.perf_counter() - t
+    def wrap(owner, name, key, after=None):
+        orig = getattr(owner, name)
+
+        def timed(*a, **k):
+            t = time.perf_counter()
+            res = orig(*a, **k)
+            if key:
+                counts[key] += time.perf_counter() - t
+            if after:
+                after(res)
+            return res
+
+        patched.append((owner, name, orig))
+        setattr(owner, name, timed)
+
+    def on_fused(res):
         counts["staged_dp_calls"] += 1
         counts["dp_on_host"] += int(res[3].sum())
-        return res
 
-    def py_staging(self, reads):
-        counts["python_staging"] += 1
-        return orig[1](self, reads)
-
-    def chain_rows(*a, **k):
-        t = time.perf_counter()
-        res = orig[2](*a, **k)
-        counts["chain_s"] += time.perf_counter() - t
-        return res
-
-    def poa_dispatch(*a, **k):
-        t = time.perf_counter()
-        res = orig[3](*a, **k)
-        counts["poa_s"] += time.perf_counter() - t
-        counts["poa_dispatches"] += 1
-        return res
-
-    kernels.solve_dp_fused = fused
-    SpliceAligner._chain_batch_device = py_staging
-    chain_kernel.chain_batch_rows = chain_rows
-    poa_kernels._dispatch_chunk = poa_dispatch
+    wrap(kernels, "solve_dp_fused", "dp_s", on_fused)
+    wrap(kernels, "solve_dp_rowscan", "dp_s")
+    wrap(chain_kernel, "chain_batch_rows", "chain_s")
+    wrap(chain_kernel, "chain_batch_jax", "chain_s")
+    wrap(ShardedIndex, "lookup", "lookup_s")
+    wrap(SpliceAligner, "_chain_batch_device", None,
+         lambda _res: counts.__setitem__("python_staging",
+                                         counts["python_staging"] + 1))
+    wrap(poa_kernels, "_dispatch_chunk", "poa_s",
+         lambda _res: counts.__setitem__("poa_dispatches",
+                                         counts["poa_dispatches"] + 1))
     try:
         yield counts
     finally:
-        (kernels.solve_dp_fused, SpliceAligner._chain_batch_device,
-         chain_kernel.chain_batch_rows, poa_kernels._dispatch_chunk) = orig
+        for owner, name, orig in reversed(patched):
+            setattr(owner, name, orig)
 
 
 def run_cli(data: str, out: str, extra: list) -> dict:
@@ -584,9 +630,9 @@ def report_run(tag: str, res: dict, n_reads: int, card_s: str) -> None:
         f"stages s: {stages}")
 
 
-def phase_pipeline(seed: int, card_s: str, tmp: str) -> None:
+def phase_pipeline(seed: int, card_s: str, tmp: str, n_genes: int = 100,
+                   per_gene: int = 200, mbp: int = 50) -> None:
     from mandalorion_tpu.utils.simulate import make_chromosome_dataset
-    n_genes, per_gene, mbp = 100, 200, 50
     log(f"phase pipeline: config-3 shape (1 chromosome, {mbp} Mbp, "
         f"{n_genes} genes), reduced: {per_gene} reads per gene instead of "
         "1000, for the run's time limit")
@@ -616,33 +662,46 @@ def phase_pipeline(seed: int, card_s: str, tmp: str) -> None:
         "files")
 
 
-def phase_devices4(seed: int, card_s: str, tmp: str) -> None:
+def phase_devices4(seed: int, card_s: str, tmp: str,
+                   n_genes: int = 100, per_gene: int = 20,
+                   mbp: int = 50) -> None:
     import jax
     from mandalorion_tpu.utils.simulate import make_chromosome_dataset
     if len(jax.devices()) < 4:
         raise RuntimeError(f"--devices 4 needs 4 GPUs, JAX sees "
                            f"{len(jax.devices())}")
-    n_genes, per_gene, mbp = 12, 25, 5
-    log(f"phase devices4: config-3 shape reduced to {mbp} Mbp, {n_genes} "
-        f"genes x {per_gene} reads (mesh runs stage module A in Python)")
+    log(f"phase devices4: config-3 shape (1 chromosome, {mbp} Mbp, "
+        f"{n_genes} genes), reduced: {per_gene} reads per gene instead of "
+        "1000, because the device POA route (~90 reads/s on one card) "
+        "runs three times here on four cards")
     data = os.path.join(tmp, "c3")
     n_reads = make_chromosome_dataset(data, n_genes, per_gene, mbp, seed)
+    log(f"generated {n_reads} reads")
     one = run_cli(data, os.path.join(tmp, "one"), DEVICE_ARGS)
     report_run("1-card device route", one, n_reads, card_s)
     for tag, extra in (("mesh4", ["--devices", "4"]),
                        ("mesh4-sharded-index",
                         ["--devices", "4", "--index_backend", "sharded"])):
-        res = run_cli(data, os.path.join(tmp, tag), DEVICE_ARGS + extra)
+        with device_route_probe() as counts:
+            res = run_cli(data, os.path.join(tmp, tag), DEVICE_ARGS + extra)
         report_run(f"{tag} device route", res, n_reads, card_s)
+        log(f"{tag}: module A took the "
+            f"{'Python' if counts['python_staging'] else 'native'} staged "
+            f"path ({counts['staged_dp_calls']} fused DP calls); device "
+            f"layers: chain {counts['chain_s']:.1f}s, affine DP "
+            f"{counts['dp_s']:.1f}s, sharded index {counts['lookup_s']:.1f}"
+            f"s, POA {counts['poa_s']:.1f}s in {counts['poa_dispatches']} "
+            "dispatches")
         bad = compare_outputs(os.path.join(tmp, "one"),
                               os.path.join(tmp, tag))
         if bad:
             raise AssertionError(f"{tag} differs from 1 card: {bad}")
         log(f"{tag} == 1-card run, byte for byte: {len(OUTPUT_FILES)} "
             "files")
-    peaks = [d.memory_stats()["peak_bytes_in_use"] for d in jax.devices()]
-    log("peak_bytes_in_use per device: "
-        + ", ".join(f"{p / 2**20:.0f} MiB" for p in peaks))
+    peaks = [(d.memory_stats() or {}).get("peak_bytes_in_use")
+             for d in jax.devices()]
+    log("peak_bytes_in_use per device: " + ", ".join(
+        "n/a" if p is None else f"{p / 2**20:.0f} MiB" for p in peaks))
 
 
 def main(argv=None) -> int:

@@ -76,18 +76,16 @@ class SpliceAligner:
         self.dp_on_host = 0
         # hash-axis-sharded genome index (SURVEY §2.3: the alternative to
         # per-host replication for indexes beyond one host's memory):
-        # seed lookups route through parallel.dist.sharded_index_lookup,
-        # each device owning one hash-range shard, byte-identical to the
+        # seed lookups route through parallel.dist.ShardedIndex, each
+        # device owning one hash-range shard, byte-identical to the
         # replicated path (tests/test_parallel.py)
         self._sharded = None
         if getattr(self.cfg, "index_backend", "replicated") == "sharded":
             from mandalorion_tpu.parallel.mesh import pipeline_mesh
             mesh = pipeline_mesh()
             if mesh is not None:
-                from mandalorion_tpu.parallel.dist import shard_index_arrays
-                n_sh = int(mesh.devices.size)
-                self._sharded = (mesh,
-                                 *shard_index_arrays(self.index, n_sh))
+                from mandalorion_tpu.parallel.dist import ShardedIndex
+                self._sharded = ShardedIndex(mesh, self.index)
         if backend == "rowscan":
             from mandalorion_tpu.align.kernels import solve_dp_rowscan
             self.dp_backend = solve_dp_rowscan
@@ -123,35 +121,28 @@ class SpliceAligner:
 
     # ------------------------------------------------------------ seeding
 
-    def _sharded_lookup(self, hashes: np.ndarray
-                        ) -> Tuple[np.ndarray, np.ndarray]:
-        """GenomeIndex.lookup through the mesh-sharded index: per-device
-        searchsorted on its own hash-range shard + all_gather, then the
-        same repeat-cap and per-read anchor-budget refinement on the
-        merged counts — byte-identical (query order, hit order) to the
-        replicated lookup."""
-        from mandalorion_tpu.align.index import ANCHOR_BUDGET
-        from mandalorion_tpu.parallel.dist import sharded_index_lookup
-        mesh, sh, sp, sl = self._sharded
-        from mandalorion_tpu.parallel.mesh import fetch_global
-        pos, valid, cnt = sharded_index_lookup(mesh, sh, sp, sl,
-                                               hashes, self.max_occ)
-        pos = fetch_global(pos)
-        valid = fetch_global(valid)
-        counts = fetch_global(cnt).sum(axis=0)  # one shard owns each hash
-        keep = (counts > 0) & (counts <= self.max_occ)
-        kept_counts = counts[keep]
-        if int(kept_counts.sum()) > ANCHOR_BUDGET:
-            c = np.sort(kept_counts)
-            k = int(np.searchsorted(np.cumsum(c), ANCHOR_BUDGET, "right"))
-            cut = max(int(c[k - 1]) if k > 0 else 1, 1)
-            keep &= counts <= cut
-        # flatten kept hits: query-major, owner shard's sorted order
-        valid = valid & keep[None, :, None]
-        shard_i, qi, ki = np.nonzero(valid)
-        order = np.lexsort((ki, shard_i, qi))
-        return qi[order].astype(np.int64), \
-            pos[shard_i[order], qi[order], ki[order]].astype(np.int64)
+    def _sharded_seeds(self, orientations: Sequence[np.ndarray]):
+        """Seed many read orientations through the mesh-sharded index in
+        one lookup (two device dispatches): per orientation,
+        [(chrom_idx, [Segment, ...]), ...] in ascending chrom order, as
+        GenomeIndex.seed_segments gives on the replicated index."""
+        cfg = self.cfg
+        mins = [minimizers(qc, cfg.kmer, cfg.window) for qc in orientations]
+        off = np.zeros(len(mins) + 1, np.int64)
+        np.cumsum([len(h) for _p, h in mins], out=off[1:])
+        qidx, gpos = self._sharded.lookup(
+            np.concatenate([h for _p, h in mins]) if len(mins)
+            else np.zeros(0, np.uint64), self.max_occ, off)
+        cut = np.searchsorted(qidx, off)
+        out = []
+        for g, (pos, _h) in enumerate(mins):
+            qi, gp = qidx[cut[g]:cut[g + 1]] - off[g], gpos[cut[g]:cut[g + 1]]
+            qpos = pos[qi]
+            ci, _local = self.index.position_to_chrom(gp)
+            out.append([(int(c), collapse_anchors(qpos[ci == c], gp[ci == c],
+                                                  cfg.kmer))
+                        for c in np.unique(ci)])
+        return out
 
     def _chain_for(self, codes: np.ndarray
                    ) -> Tuple[Optional[List[Segment]], float, int]:
@@ -159,18 +150,7 @@ class SpliceAligner:
         cfg = self.cfg
         idx = self.index
         if self._sharded is not None:
-            from mandalorion_tpu.align.encode import minimizers as _mins
-            pos, hashes = _mins(codes, cfg.kmer, cfg.window)
-            if len(pos) == 0:
-                return None, 0.0, -1
-            qidx, gpos = self._sharded_lookup(hashes)
-            if len(qidx) == 0:
-                return None, 0.0, -1
-            qpos = pos[qidx]
-            ci, _local = idx.position_to_chrom(gpos)
-            seeded = [(int(c), collapse_anchors(qpos[ci == c],
-                                                gpos[ci == c], cfg.kmer))
-                      for c in np.unique(ci)]
+            seeded = self._sharded_seeds([codes])[0]
             best_chain, best_score, best_ci = None, 0.0, -1
             for c, segs in seeded:
                 chain, score = chain_segments(
@@ -554,16 +534,16 @@ class SpliceAligner:
 
         Bit-identical to the Python-staged path (and therefore to the
         host path): tests/test_stage_native.py byte-compares all three.
-        Returns None (caller falls back to the Python staging) when the
-        native library is missing, a mesh is installed (the sharded
-        dispatches need per-device batching), or the index is sharded.
+        Under a pipeline mesh both dispatches shard their batch over the
+        devices. Returns None (caller falls back to the Python staging)
+        when the native library is missing or the index is sharded (its
+        seeds come from the devices, not the C seeder).
         Replaces minimap2 (Mando.py:316-319) on the device route."""
         from mandalorion_tpu.native import (
             load_native, native_stage_seed_batch, native_stage_fill_batch,
             native_stage_emit_batch)
-        from mandalorion_tpu.parallel.mesh import pipeline_mesh
         if load_native() is None or self._sharded is not None or \
-                self.index.bucket_lo is None or pipeline_mesh() is not None:
+                self.index.bucket_lo is None:
             return None
         cfg = self.cfg
         if getattr(cfg, "dp_backend", "numpy") != "rowscan":
@@ -638,30 +618,31 @@ class SpliceAligner:
         cfg = self.cfg
         cands = []  # (read_idx, strand, chrom, q_codes)
         seg_lists: List[List[Segment]] = []
+        orients = []  # (read_idx, strand, q_codes), forward first
         for ri, (_name, seq) in enumerate(reads):
             codes = encode(seq)
-            for strand, qc in (("+", codes), ("-", revcomp_codes(codes))):
-                seeded = (None if self._sharded is not None
-                          else self.index.seed_segments(qc, self.max_occ))
-                if seeded is None:  # sharded index or no native library
-                    pos, hashes = minimizers(qc, cfg.kmer, cfg.window)
-                    if len(pos) == 0:
-                        continue
-                    if self._sharded is not None:
-                        qidx, gpos = self._sharded_lookup(hashes)
-                    else:
-                        qidx, gpos = self.index.lookup(hashes, self.max_occ)
-                    if len(qidx) == 0:
-                        continue
-                    qpos = pos[qidx]
-                    ci, _l = self.index.position_to_chrom(gpos)
-                    seeded = [(int(c),
-                               collapse_anchors(qpos[ci == c],
-                                                gpos[ci == c], cfg.kmer))
-                              for c in np.unique(ci)]
-                for c, segs in seeded:
-                    cands.append((ri, strand, int(c), qc))
-                    seg_lists.append(segs)
+            orients += [(ri, "+", codes), (ri, "-", revcomp_codes(codes))]
+        if self._sharded is not None:
+            sharded = self._sharded_seeds([qc for _r, _s, qc in orients])
+        for o, (ri, strand, qc) in enumerate(orients):
+            seeded = (sharded[o] if self._sharded is not None
+                      else self.index.seed_segments(qc, self.max_occ))
+            if seeded is None:  # no native library
+                pos, hashes = minimizers(qc, cfg.kmer, cfg.window)
+                if len(pos) == 0:
+                    continue
+                qidx, gpos = self.index.lookup(hashes, self.max_occ)
+                if len(qidx) == 0:
+                    continue
+                qpos = pos[qidx]
+                ci, _l = self.index.position_to_chrom(gpos)
+                seeded = [(int(c),
+                           collapse_anchors(qpos[ci == c], gpos[ci == c],
+                                            cfg.kmer))
+                          for c in np.unique(ci)]
+            for c, segs in seeded:
+                cands.append((ri, strand, int(c), qc))
+                seg_lists.append(segs)
         chains = chain_batch_jax(
             seg_lists, min_intron=cfg.min_intron, max_intron=cfg.max_intron)
         picks: List[Optional[tuple]] = [None] * len(reads)

@@ -25,16 +25,38 @@ from mandalorion_tpu.align.encode import encode, minimizers
 ANCHOR_BUDGET = 16384
 
 
+def ragged_index(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """The indices of every range [lo[i], hi[i]), concatenated."""
+    reps = (hi - lo).astype(np.int64)
+    total = int(reps.sum())
+    return np.repeat(lo, reps) + (
+        np.arange(total, dtype=np.int64)
+        - np.repeat(np.cumsum(reps) - reps, reps))
+
+
 def ragged_gather(values: np.ndarray, lo: np.ndarray, hi: np.ndarray,
                   source_ids: np.ndarray):
     """Gather values[lo[i]:hi[i]] for every range i, flattened, plus the
     repeated source_ids — the shared anchor-expansion primitive."""
-    reps = (hi - lo).astype(np.int64)
-    total = int(reps.sum())
-    idx = np.repeat(lo, reps) + (
-        np.arange(total, dtype=np.int64)
-        - np.repeat(np.cumsum(reps) - reps, reps))
-    return np.repeat(source_ids, reps), values[idx]
+    return np.repeat(source_ids, hi - lo), values[ragged_index(lo, hi)]
+
+
+def seed_keep(counts: np.ndarray, max_occ: int) -> np.ndarray:
+    """Which of one read orientation's minimizers seed, from their hit
+    counts: hashes occurring more than max_occ times are dropped (repeat
+    masking, minimap2's -f analogue), and when the rest would expand past
+    ANCHOR_BUDGET anchors the most repetitive seeds drop too — the
+    largest per-seed count `cut` whose cumulative ascending expansion fits
+    stays, so rarer (more informative) seeds always survive. Identical to
+    the native build_segments (minimizers.cpp)."""
+    keep = (counts > 0) & (counts <= max_occ)
+    kept_counts = counts[keep]
+    if int(kept_counts.sum()) > ANCHOR_BUDGET:
+        c = np.sort(kept_counts)
+        k = int(np.searchsorted(np.cumsum(c), ANCHOR_BUDGET, "right"))
+        cut = max(int(c[k - 1]) if k > 0 else 1, 1)
+        keep &= counts <= cut
+    return keep
 
 
 @dataclass
@@ -83,17 +105,7 @@ class GenomeIndex:
         else:
             lo = np.searchsorted(self.sorted_hashes, hashes, side="left")
             hi = np.searchsorted(self.sorted_hashes, hashes, side="right")
-        counts = hi - lo
-        keep = (counts > 0) & (counts <= max_occ)
-        kept_counts = counts[keep]
-        if int(kept_counts.sum()) > ANCHOR_BUDGET:
-            # keep the largest per-seed count `cut` whose cumulative
-            # ascending expansion fits the budget; seeds above it drop
-            # (rarer = more informative seeds always survive)
-            c = np.sort(kept_counts)
-            k = int(np.searchsorted(np.cumsum(c), ANCHOR_BUDGET, "right"))
-            cut = max(int(c[k - 1]) if k > 0 else 1, 1)
-            keep &= counts <= cut
+        keep = seed_keep(hi - lo, max_occ)
         lo, hi = lo[keep], hi[keep]
         qidx = np.nonzero(keep)[0]
         if len(lo) == 0:

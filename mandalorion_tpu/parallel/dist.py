@@ -12,6 +12,7 @@ indexes larger than one host's memory). SURVEY §2.3 merge collectives.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 
@@ -118,59 +119,98 @@ def shard_index_arrays(index, n_shards: int):
     return hashes, positions, lens
 
 
-@functools.lru_cache(maxsize=8)
-def _sharded_lookup_fn(mesh: Mesh, max_occ: int):
-    axis = mesh.axis_names[0]
-
-    @functools.partial(
-        shard_map, mesh=mesh,
-        in_specs=(P(axis, None), P(axis, None), P(axis), P(None)),
-        out_specs=(P(None, None, None), P(None, None, None),
-                   P(None, None)),
-        **{_CHECK_KW: False})  # all_gather replication is real
-    def run(h2, p2, ln2, q):
-        h, p, ln = h2[0], p2[0], ln2[0]
-        lo = jnp.searchsorted(h, q, side="left")
-        hi = jnp.searchsorted(h, q, side="right")
-        cnt = hi - lo
-        # exclude hits into this shard's sentinel padding
-        cnt = jnp.minimum(cnt, jnp.maximum(ln - lo, 0))
-        k = jnp.arange(max_occ)
-        idx = lo[:, None] + k[None, :]
-        valid = ((k[None, :] < cnt[:, None])
-                 & (cnt[:, None] <= max_occ)
-                 & (idx < ln))  # padding sentinel hits excluded
-        pos = jnp.take(p, jnp.clip(idx, 0, h.shape[0] - 1))
-        pos = jnp.where(valid, pos, -1)
-        return (jax.lax.all_gather(pos, axis),
-                jax.lax.all_gather(valid, axis),
-                jax.lax.all_gather(cnt, axis))
-
-    return jax.jit(run)
+def _pad_pow2(a: np.ndarray, fill) -> np.ndarray:
+    """Pad a 1-D array to a power-of-two length (floor 64) so that batches
+    of any size share a handful of compiled shapes."""
+    n = 64
+    while n < len(a):
+        n *= 2
+    return np.concatenate([a, np.full(n - len(a), fill, a.dtype)])
 
 
-def sharded_index_lookup(mesh: Mesh, shard_hashes, shard_positions,
-                         shard_lens, queries, max_occ: int):
-    """Seed lookup against a hash-axis-sharded genome index: each device
-    binary-searches its own shard, expands up to max_occ hits per query,
-    and the candidate hits all_gather across the axis (SURVEY §2.3's
-    sharded-index alternative to per-host index replication). Returns
-    (positions (n_shards, nq, max_occ), valid mask) — a query's hits live
-    on the single shard owning its hash range. Runs under the x64 context
-    (the 64-bit minimizer hashes would truncate in 32-bit mode). The query
-    axis is padded to a power of two (floor 64) so reads of any length
-    share a handful of compiled shapes; padding rows are sliced off."""
-    queries = np.asarray(queries)
-    nq = len(queries)
-    padded = 64
-    while padded < nq:
-        padded *= 2
-    queries = np.concatenate(
-        [queries, np.zeros(padded - nq, queries.dtype)])
-    with jax.enable_x64(True):
-        pos, valid, cnt = _sharded_lookup_fn(mesh, max_occ)(
-            shard_hashes, shard_positions, shard_lens, queries)
-        return pos[:, :nq], valid[:, :nq], cnt[:, :nq]
+class ShardedIndex:
+    """A genome index's (hash, position) arrays split into hash-range
+    shards, one per mesh device and resident there (SURVEY §2.3's
+    sharded-index alternative to per-host index replication). A lookup
+    is two dispatches for any number of queries: each device
+    binary-searches its own shard for every query and a psum merges the
+    global hit ranges (one shard owns each hash); after the host's seed
+    filter, each device gathers the kept hit positions that fall in its
+    shard and a psum merges them. Runs under the x64 context (the 64-bit
+    minimizer hashes would truncate in 32-bit mode)."""
+
+    def __init__(self, mesh: Mesh, index):
+        from jax.sharding import NamedSharding
+        self.mesh = mesh
+        axes = tuple(mesh.axis_names)
+        hashes, positions, lens = shard_index_arrays(
+            index, int(mesh.devices.size))
+        starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+
+        def put(a):
+            return jax.device_put(a, NamedSharding(
+                mesh, P(axes, *([None] * (a.ndim - 1)))))
+
+        with jax.enable_x64(True):
+            self._hashes = put(hashes)
+            self._positions = put(positions)
+            self._lens = put(lens.astype(np.int64))
+            self._starts = put(starts.astype(np.int64))
+        shard = dict(mesh=mesh, **{_CHECK_KW: False})  # psum replicates
+
+        @functools.partial(shard_map, in_specs=(P(axes, None), P(axes),
+                                                P(axes), P(None)),
+                           out_specs=(P(None), P(None)), **shard)
+        def ranges(h2, ln2, st2, q):
+            h, ln, st = h2[0], ln2[0], st2[0]
+            lo = jnp.searchsorted(h, q, side="left")
+            hi = jnp.searchsorted(h, q, side="right")
+            # hits into this shard's sentinel padding do not count
+            cnt = jnp.minimum(hi - lo, jnp.maximum(ln - lo, 0))
+            return (jax.lax.psum(jnp.where(cnt > 0, st + lo, 0), axes),
+                    jax.lax.psum(cnt, axes))
+
+        @functools.partial(shard_map, in_specs=(P(axes, None), P(axes),
+                                                P(axes), P(None)),
+                           out_specs=P(None), **shard)
+        def gather(p2, ln2, st2, idx):
+            p, ln, st = p2[0], ln2[0], st2[0]
+            local = idx - st
+            own = (local >= 0) & (local < ln)
+            got = jnp.take(p, jnp.clip(local, 0, p.shape[0] - 1))
+            return jax.lax.psum(jnp.where(own, got, 0), axes)
+
+        self._ranges, self._gather = jax.jit(ranges), jax.jit(gather)
+
+    def lookup(self, queries: np.ndarray, max_occ: int,
+               group_off: Optional[np.ndarray] = None):
+        """GenomeIndex.lookup over the shards: (query_idx, genome_position)
+        anchor pairs, query-major in index order, byte-identical to the
+        replicated lookup. `group_off` splits the queries into read
+        orientations (the seed filter is per orientation); query_idx then
+        indexes the concatenated queries."""
+        from mandalorion_tpu.align.index import ragged_index, seed_keep
+        from mandalorion_tpu.parallel.mesh import fetch_global
+        queries = np.asarray(queries, np.uint64)
+        nq = len(queries)
+        if group_off is None:
+            group_off = np.array([0, nq], np.int64)
+        with jax.enable_x64(True):
+            lo, cnt = self._ranges(self._hashes, self._lens, self._starts,
+                                   _pad_pow2(queries, 0))
+            lo = fetch_global(lo)[:nq].astype(np.int64)
+            cnt = fetch_global(cnt)[:nq].astype(np.int64)
+            keep = np.zeros(nq, bool)
+            for a, b in zip(group_off[:-1], group_off[1:]):
+                keep[a:b] = seed_keep(cnt[a:b], max_occ)
+            qidx = np.nonzero(keep)[0]
+            idx = ragged_index(lo[keep], lo[keep] + cnt[keep])
+            if len(idx) == 0:
+                return np.zeros(0, np.int64), np.zeros(0, np.int64)
+            gpos = self._gather(self._positions, self._lens, self._starts,
+                                _pad_pow2(idx, -1))
+            gpos = fetch_global(gpos)[:len(idx)].astype(np.int64)
+        return np.repeat(qidx, cnt[keep]), gpos
 
 
 def mesh_count_matrix(mesh: Mesh, flat_ids: "np.ndarray",

@@ -221,7 +221,8 @@ def resolve_consensus_jobs(jobs: Sequence[ConsensusJob],
             by_params.setdefault(key, []).append(i)
     for ids in by_params.values():
         consensi = poa_consensus_batch([jobs[i].oriented for i in ids],
-                                       [jobs[i].params for i in ids])
+                                       jobs[ids[0]].params,
+                                       [jobs[i].params.band for i in ids])
         for i, cons in zip(ids, consensi):
             jobs[i].result = (_decode(cons) if len(cons)
                               else jobs[i].fallback)

@@ -1,7 +1,7 @@
 """The device route's contracts that hold on any platform: one device DP
-backend, no TPU-only kernel modules, one process per accelerator in
-module A, the compile-cache location, and the on-card smoke script's
-refusal to run anywhere but a GPU."""
+backend, no Pallas code for a machine other than a GPU, one process per
+accelerator in module A, the compile-cache location, and the on-card
+smoke script's refusal to run anywhere but a GPU."""
 
 import ast
 import os
@@ -44,7 +44,13 @@ def _imports(path):
                 yield f"{node.module}.{alias.name}"
 
 
-def test_no_tpu_kernel_imports():
+# the Pallas lowerings that target a GPU; any other backend module of
+# Pallas is machine-specific code the device route cannot run
+GPU_PALLAS = ("jax.experimental.pallas.triton",
+              "jax.experimental.pallas.mosaic_gpu")
+
+
+def test_pallas_imports_are_gpu_routes_only():
     found = []
     for top in ("mandalorion_tpu", "tests", "tools"):
         for root, _dirs, files in os.walk(os.path.join(REPO, top)):
@@ -52,9 +58,8 @@ def test_no_tpu_kernel_imports():
                 if f.endswith(".py"):
                     path = os.path.join(root, f)
                     found += [(path, m) for m in _imports(path)
-                              if m.startswith("jax.experimental.pallas.tpu")
-                              or m.startswith("jax.experimental.pallas")
-                              and m.endswith(".tpu")]
+                              if m.startswith("jax.experimental.pallas.")
+                              and not m.startswith(GPU_PALLAS)]
     assert not found
 
 
@@ -153,3 +158,10 @@ def test_compare_outputs_catches_one_byte(tmp_path):
     assert chip_smoke.compare_outputs(str(a), str(b)) == [name]
     (b / name).unlink()
     assert chip_smoke.compare_outputs(str(a), str(b)) == [name]
+
+
+def test_chain_costs_round_like_numpy():
+    """The chain kernel's float32 gap costs equal numpy's separately
+    rounded multiply and add at every gap size and exponent (XLA's CPU
+    backend would otherwise fuse them into one FMA)."""
+    assert chip_smoke.check_chain_costs() == 400_001 + 64

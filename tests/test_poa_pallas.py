@@ -64,20 +64,21 @@ def test_pallas_matches_python_oracle(kind, band):
 
 
 def test_mixed_bands_share_dispatches(monkeypatch):
-    """Sets whose params differ only in band run in the same lockstep
-    dispatches (one per round), each problem with its own band, and match
-    the oracle run at that set's band."""
+    """Sets with their own bands run in the same lockstep dispatches (one
+    per round), each problem with its own band, and match the oracle run
+    at that set's band."""
     from mandalorion_tpu.poa import kernels as kn
     sets = _sets(3, 5, 300, 0.03, 7)
-    params = [PoaParams(band=b, adaptive=True) for b in (16, 24, 40)]
+    bands = (16, 24, 40)
     calls = []
     orig = kn._dispatch_chunk
     monkeypatch.setattr(kn, "_dispatch_chunk",
                         lambda *a: calls.append(a[6].copy()) or orig(*a))
-    got = poa_consensus_batch(sets, params)
+    got = poa_consensus_batch(sets, PoaParams(adaptive=True), bands)
     assert len(calls) == 4                      # rounds 1..4, one chunk
-    assert list(calls[0][:3]) == [16, 24, 40]   # per-problem bands
-    for ss, p, cons in zip(sets, params, got):
+    assert list(calls[0][:3]) == list(bands)    # per-problem bands
+    for ss, b, cons in zip(sets, bands, got):
+        p = PoaParams(band=b, adaptive=True)
         assert decode(poa_consensus(ss, p)) == decode(cons)
-    with pytest.raises(ValueError, match="only in band"):
-        poa_consensus_batch(sets[:2], [params[0], PoaParams(band=16)])
+    with pytest.raises(ValueError, match="one band per set"):
+        poa_consensus_batch(sets[:2], PoaParams(adaptive=True), bands)
